@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.synthetic import synthesize
-from tcgnn_tpu.ops.reference import spmm_ref
-from tcgnn_tpu.parallel import distributed_graph_from_dataset, make_mesh
-from tcgnn_tpu.sgt.reorder import (
+from tcgnn.config import TileConfig
+from tcgnn.data.synthetic import synthesize
+from tcgnn.ops.reference import spmm_ref
+from tcgnn.parallel import distributed_graph_from_dataset, make_mesh
+from tcgnn.sgt.reorder import (
     apply_permutation,
     balance_dataset,
     shard_balance_permutation,
@@ -29,8 +29,8 @@ CFG = TileConfig(blk_h=16, blk_w=16, edge_chunk=16)
 
 def _loads(ptr, cols, n, g, cfg):
     """Per-shard padded block loads for the contiguous window split."""
-    from tcgnn_tpu.sgt import native
-    from tcgnn_tpu.sgt.translate import _cdiv, _pad_blocks
+    from tcgnn.sgt import native
+    from tcgnn.sgt.translate import _cdiv, _pad_blocks
 
     w = max(_cdiv(n, cfg.blk_h), 1)
     per = native.count_blocks(
@@ -77,7 +77,7 @@ def test_balance_reduces_max_shard_load():
     ptr, cols = _skewed_csr(n)
     before = _loads(ptr, cols, n, g, CFG)
     perm = shard_balance_permutation(ptr, cols, n, g, CFG)
-    from tcgnn_tpu.sgt.reorder import permute_csr
+    from tcgnn.sgt.reorder import permute_csr
 
     new_ptr, new_cols, _ = permute_csr(ptr, cols, perm)
     after = _loads(new_ptr, new_cols, n, g, CFG)
@@ -140,7 +140,7 @@ def test_bd_graphs_skip_balance():
     mesh = make_mesh(n_graph=4, n_feature=2)
     # Pure block-diagonal graph: disjoint 16-node cliques (bin_rows=128
     # default BD geometry needs blk multiples; use the library gate itself).
-    from tcgnn_tpu.parallel.graph import probe_block_diag
+    from tcgnn.parallel.graph import probe_block_diag
 
     n = 1024
     blocks = [np.arange(i, i + 16) for i in range(0, n, 16)]

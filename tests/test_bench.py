@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tcgnn_tpu.bench.log2csv import scrape
-from tcgnn_tpu.bench.tc_block_count import count_tiles
-from tcgnn_tpu.bench.baseline import XlaBaselineGraph
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.sgt import native
+from tcgnn.bench.log2csv import scrape
+from tcgnn.bench.tc_block_count import count_tiles
+from tcgnn.bench.baseline import XlaBaselineGraph
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph
+from tcgnn.graph import TiledGraph
+from tcgnn.sgt import native
 
 
 def make_graph(n, e, seed=0):

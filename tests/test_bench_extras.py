@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from tcgnn_tpu.data import dataset as data_lib
+from tcgnn.data import dataset as data_lib
 
 
 def test_load_txt_roundtrip(tmp_path):
@@ -23,7 +23,7 @@ def test_load_txt_roundtrip(tmp_path):
 def test_bcoo_baseline_runs_and_reports(capsys):
     """The second incumbent (jax.experimental.sparse BCOO) stays live:
     same CLI/output contract as the gather baseline."""
-    from tcgnn_tpu.bench import baseline
+    from tcgnn.bench import baseline
 
     ms = baseline.main([
         "--dataset", "rand_500_2500", "--dim", "8", "--classes", "3",
@@ -36,7 +36,7 @@ def test_bcoo_baseline_runs_and_reports(capsys):
 
 
 def test_proc_prof_reduces_csvs(tmp_path, capsys):
-    from tcgnn_tpu.bench import proc_prof
+    from tcgnn.bench import proc_prof
 
     p1 = tmp_path / "a.csv"
     p1.write_text(
@@ -54,9 +54,9 @@ def test_proc_prof_reduces_csvs(tmp_path, capsys):
 
 def test_epoch_ledger_smoke(tmp_path):
     """Measured per-stage epoch ledger: stages are measured, summed, and
-    the CSV row carries the decomposition (methodology harness; numeric
-    quality asserts are TPU-only)."""
-    from tcgnn_tpu.bench import epoch_ledger as E
+    the CSV row carries the decomposition (methodology harness; CPU times
+    say nothing about the device)."""
+    from tcgnn.bench import epoch_ledger as E
 
     out = tmp_path / "ledger.csv"
     rows = E.main([

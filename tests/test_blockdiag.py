@@ -1,7 +1,7 @@
 """Block-diagonal SpMM path: extraction, gating, oracle + grad parity.
 
 The bd path (sgt/blockdiag.py + ops/spmm.py:spmm_block_diag) serves
-banded/component graphs as uniform batched MXU matmuls; these tests pin its
+banded/component graphs as uniform batched matmuls; these tests pin its
 semantics against the dense oracle and check the auto-gate keeps power-law
 graphs on the condensed design.
 """
@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import component_union_graph, powerlaw_graph
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.sgt.blockdiag import bd_coverage, extract_block_diag
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import component_union_graph, powerlaw_graph
+from tcgnn.graph import TiledGraph
+from tcgnn.sgt.blockdiag import bd_coverage, extract_block_diag
 
 CFG = TileConfig(blk_h=128, blk_w=128, edge_chunk=64)
 

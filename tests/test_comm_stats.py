@@ -13,16 +13,16 @@ import pytest
 
 import jax
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data import synthetic
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.parallel import make_mesh
-from tcgnn_tpu.parallel.comm_stats import (
+from tcgnn.config import TileConfig
+from tcgnn.data import synthetic
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.parallel import make_mesh
+from tcgnn.parallel.comm_stats import (
     collective_bytes_from_hlo,
     step_collective_bytes,
 )
-from tcgnn_tpu.parallel.graph import DistributedTiledGraph
-from tcgnn_tpu.parallel.train import (
+from tcgnn.parallel.graph import DistributedTiledGraph
+from tcgnn.parallel.train import (
     init_distributed_net,
     make_distributed_train_step,
 )
@@ -91,7 +91,7 @@ def test_step_emits_collectives_and_boundary_scale(mesh42):
     # Halo rides per-offset collective-permutes (one per owner offset per
     # pass); split partial-tile returns, when present, are all_to_alls.
     assert stats["collective_permute"]["count"] >= 2  # fwd + bwd halos
-    from tcgnn_tpu.bench.partition_stats import shard_stats
+    from tcgnn.bench.partition_stats import shard_stats
 
     rows_per_shard, shards = shard_stats(
         ds.row_pointers, ds.column_index, ds.num_nodes, dg.pg, config=CFG
@@ -149,8 +149,8 @@ def test_two_level_mesh_dcn_fraction_and_step():
     """make_mesh_two_level: same axes, host-major placement; on a banded
     graph the measured halo pair matrix puts only a small fraction of rows
     on DCN (host-crossing pairs), and the step trains correctly."""
-    from tcgnn_tpu.parallel.comm_stats import dcn_halo_fraction
-    from tcgnn_tpu.parallel.mesh import make_mesh_two_level
+    from tcgnn.parallel.comm_stats import dcn_halo_fraction
+    from tcgnn.parallel.mesh import make_mesh_two_level
 
     mesh = make_mesh_two_level(n_hosts=2, chips_per_host=4, n_feature=1)
     assert dict(mesh.shape) == {"graph": 8, "feature": 1}
@@ -198,7 +198,7 @@ def test_collective_bytes_raw_hlo_fixture():
     XLA dump-format drift fails loudly (round-3 advisor finding)."""
     import warnings
 
-    from tcgnn_tpu.parallel.comm_stats import collective_bytes_from_hlo
+    from tcgnn.parallel.comm_stats import collective_bytes_from_hlo
 
     hlo = """\
 HloModule jit_step

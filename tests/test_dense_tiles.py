@@ -5,17 +5,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.ops.reference import sddmm_ref, spmm_ref
-from tcgnn_tpu.ops.sddmm import sddmm_tc_dense
-from tcgnn_tpu.ops.spmm import build_a_tiles, spmm_tc_dense
-from tcgnn_tpu.sgt.translate import sparse_graph_translate
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph
+from tcgnn.graph import TiledGraph
+from tcgnn.ops.reference import sddmm_ref, spmm_ref
+from tcgnn.ops.sddmm import sddmm_tc_dense
+from tcgnn.ops.spmm import build_a_tiles, spmm_tc_dense
+from tcgnn.sgt.translate import sparse_graph_translate
 
 CFG_SMALL = TileConfig(blk_h=8, blk_w=8, edge_chunk=8)
-CFG_TPU = TileConfig()
+CFG_DEFAULT = TileConfig()
 
 
 def make_graph(n, e, seed=0):
@@ -23,7 +23,7 @@ def make_graph(n, e, seed=0):
     return coo_to_csr(src, dst, n)
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_TPU])
+@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_DEFAULT])
 @pytest.mark.parametrize("n,e,d", [(100, 600, 16), (300, 1500, 50)])
 def test_dense_spmm_matches_oracle(cfg, n, e, d):
     indptr, indices = make_graph(n, e, seed=n + d)
@@ -34,7 +34,7 @@ def test_dense_spmm_matches_oracle(cfg, n, e, d):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_TPU])
+@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_DEFAULT])
 def test_dense_spmm_weighted_matches_oracle(cfg):
     n, e, d = 200, 1200, 24
     indptr, indices = make_graph(n, e, seed=1)
@@ -46,7 +46,7 @@ def test_dense_spmm_weighted_matches_oracle(cfg):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_TPU])
+@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_DEFAULT])
 @pytest.mark.parametrize("d", [16, 130])
 def test_dense_sddmm_matches_oracle(cfg, d):
     n, e = 150, 900
@@ -98,8 +98,8 @@ def test_device_struct_tiles_match_host_build():
     """build_struct_tiles (device scatter, edge+block shape bucketing) must
     reproduce the host bincount build exactly — including duplicate-edge
     counts and the dropped padding sentinels."""
-    from tcgnn_tpu.ops.spmm import build_struct_tiles
-    from tcgnn_tpu.sgt.translate import build_a_tiles_host
+    from tcgnn.ops.spmm import build_struct_tiles
+    from tcgnn.sgt.translate import build_a_tiles_host
 
     cfg = CFG_SMALL
     indptr, indices = make_graph(220, 1300, seed=5)

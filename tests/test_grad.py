@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.models import nets
-from tcgnn_tpu.ops.reference import edge_rows_from_csr, spmm_ref, sddmm_ref
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.graph import TiledGraph
+from tcgnn.models import nets
+from tcgnn.ops.reference import edge_rows_from_csr, spmm_ref, sddmm_ref
 
 CFG = TileConfig(blk_h=8, blk_w=8, edge_chunk=8)
 

@@ -1,6 +1,6 @@
 """Boundary-only halo exchange: structure, remap correctness, scaling.
 
-SURVEY §2.3 / BASELINE.json call for *boundary feature* exchange over ICI
+SURVEY §2.3 / BASELINE.json call for *boundary feature* exchange between devices
 — not a full feature-matrix all_gather.  These tests pin down the
 partition-time halo structures (``partition.build_halo``) and the memory
 property: the extended slab each device assembles is
@@ -10,8 +10,8 @@ O(rows_per_shard + boundary), independent of N for banded graphs.
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.parallel.partition import partition_graph
+from tcgnn.config import TileConfig
+from tcgnn.parallel.partition import partition_graph
 
 CFG = TileConfig(blk_h=16, blk_w=16, edge_chunk=16)
 
@@ -112,7 +112,7 @@ def test_plan_halo_rounds_schedule_properties():
     within the budget, heavy-requester pairs ride extra rounds alone."""
     import numpy as np
 
-    from tcgnn_tpu.parallel.partition import plan_halo_rounds
+    from tcgnn.parallel.partition import plan_halo_rounds
 
     G = 6
     rng = np.random.default_rng(0)

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph
-from tcgnn_tpu.sgt import native
-from tcgnn_tpu.sgt.translate import (
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph
+from tcgnn.sgt import native
+from tcgnn.sgt.translate import (
     build_a_tiles_host,
     count_blocks,
     sparse_graph_translate,
@@ -81,7 +81,7 @@ def test_native_transpose_matches_numpy():
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n, e)
     ptr, cols = coo_to_csr(src, dst, n)
-    from tcgnn_tpu.sgt import native
+    from tcgnn.sgt import native
 
     if not native.available():
         pytest.skip("no native lib")
@@ -105,7 +105,7 @@ def test_native_chunk_layout_matches_numpy():
     dst = rng.integers(0, n, e)
     ptr, cols = coo_to_csr(src, dst, n)
     cfg = TileConfig(blk_h=64, blk_w=32, edge_chunk=16)
-    from tcgnn_tpu.sgt import native
+    from tcgnn.sgt import native
 
     if not native.available():
         pytest.skip("no native lib")
@@ -135,7 +135,7 @@ def test_native_vs_numpy_fuzz_multigraph(seed):
     dst = np.concatenate([dst, dst[dup]])
     ptr, cols = coo_to_csr(src, dst, n)
     cfg = TileConfig(blk_h=32, blk_w=16, edge_chunk=8)
-    from tcgnn_tpu.sgt import native
+    from tcgnn.sgt import native
 
     if not native.available():
         pytest.skip("no native lib")
@@ -162,7 +162,7 @@ def test_native_vs_numpy_bd_extract_fuzz(seed):
     """Native block-diagonal extraction (sgt.cpp:sgt_bd_hist/sgt_bd_fill)
     vs the numpy pass on random banded / power-law / multigraph inputs:
     identical selection, streams, tile contents, and packed indices."""
-    from tcgnn_tpu.sgt import blockdiag as bd
+    from tcgnn.sgt import blockdiag as bd
 
     if not native.available():
         pytest.skip("no native lib")

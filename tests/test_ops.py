@@ -1,24 +1,20 @@
-"""Pallas SpMM / SDDMM kernels vs the dense segment-sum oracles.
-
-Runs in Pallas interpreter mode on the CPU mesh (conftest forces
-JAX_PLATFORMS=cpu); the same code path compiles with Mosaic on TPU.
-"""
+"""Chunk-route SpMM / SDDMM vs the dense segment-sum oracles (CPU)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph
-from tcgnn_tpu.ops.reference import sddmm_ref, spmm_ref
-from tcgnn_tpu.ops.sddmm import sddmm_tc
-from tcgnn_tpu.ops.spmm import spmm_tc
-from tcgnn_tpu.sgt.translate import sparse_graph_translate
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph
+from tcgnn.ops.reference import sddmm_ref, spmm_ref
+from tcgnn.ops.sddmm import sddmm_tc
+from tcgnn.ops.spmm import spmm_tc
+from tcgnn.sgt.translate import sparse_graph_translate
 
 CFG_SMALL = TileConfig(blk_h=8, blk_w=8, edge_chunk=8)
-CFG_TPU = TileConfig()  # 128/128/128
+CFG_DEFAULT = TileConfig()  # 128/128/128
 
 
 def make_graph(n, e, seed=0):
@@ -27,7 +23,7 @@ def make_graph(n, e, seed=0):
     return indptr, indices
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_TPU])
+@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_DEFAULT])
 @pytest.mark.parametrize("n,e,d", [(100, 600, 16), (300, 1500, 50)])
 def test_spmm_matches_oracle(cfg, n, e, d):
     indptr, indices = make_graph(n, e, seed=n + d)
@@ -40,7 +36,7 @@ def test_spmm_matches_oracle(cfg, n, e, d):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_TPU])
+@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_DEFAULT])
 def test_spmm_weighted_matches_oracle(cfg):
     n, e, d = 200, 1200, 24
     indptr, indices = make_graph(n, e, seed=1)
@@ -54,7 +50,7 @@ def test_spmm_weighted_matches_oracle(cfg):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_TPU])
+@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_DEFAULT])
 @pytest.mark.parametrize("d", [16, 130])
 def test_sddmm_matches_oracle(cfg, d):
     n, e = 150, 900
@@ -75,7 +71,7 @@ def test_sddmm_two_matrix():
     xb = jax.random.normal(jax.random.PRNGKey(6), (n, d), jnp.float32)
     got = sddmm_tc(xa, meta, xb)
     # Oracle with two matrices.
-    from tcgnn_tpu.ops.reference import edge_rows_from_csr
+    from tcgnn.ops.reference import edge_rows_from_csr
 
     rows = edge_rows_from_csr(jnp.asarray(indptr), len(indices))
     want = jnp.sum(xa[rows] * xb[jnp.asarray(indices)], axis=-1)
@@ -102,8 +98,8 @@ def test_sddmm_edge_dot_route_matches_oracle(monkeypatch):
     """Hub-graph edge-dot SDDMM route (graph.SDDMM_EDGE_DOT_BYTES): forcing
     it on a small graph must match both the tile-path extraction and the
     dense oracle — same semantics, no score-tile materialization."""
-    import tcgnn_tpu.graph as G
-    from tcgnn_tpu.graph import TiledGraph
+    import tcgnn.graph as G
+    from tcgnn.graph import TiledGraph
 
     n, e = 260, 1600
     indptr, indices = make_graph(n, e, seed=21)

@@ -6,16 +6,16 @@ import numpy as np
 import optax
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.ops.reference import spmm_ref, sddmm_ref
-from tcgnn_tpu.parallel import (
+from tcgnn.config import TileConfig
+from tcgnn.graph import TiledGraph
+from tcgnn.ops.reference import spmm_ref, sddmm_ref
+from tcgnn.parallel import (
     DistributedTiledGraph,
     make_mesh,
     make_distributed_train_step,
     init_distributed_net,
 )
-from tcgnn_tpu.models import nets
+from tcgnn.models import nets
 
 CFG = TileConfig(blk_h=16, blk_w=16, edge_chunk=16)
 
@@ -231,9 +231,9 @@ def test_overlap_split_is_nontrivial_and_used(setup):
 
 
 def test_distributed_fused_agnn_matches_single_device(mesh42):
-    from tcgnn_tpu.data.synthetic import powerlaw_graph
-    from tcgnn_tpu.data.dataset import coo_to_csr
-    from tcgnn_tpu.models import layers as L
+    from tcgnn.data.synthetic import powerlaw_graph
+    from tcgnn.data.dataset import coo_to_csr
+    from tcgnn.models import layers as L
 
     n, d = 160, 16
     src, dst = powerlaw_graph(n, 1000, seed=11)  # symmetric generator
@@ -275,13 +275,13 @@ def test_distributed_fused_agnn_matches_single_device(mesh42):
 
 
 def test_distributed_sfused_agnn_pf1_matches_single_device():
-    """pf==1 mesh takes the score-fused distributed AGNN (in-VMEM score
-    tiles, one-pass fused backward) — fwd and grads exact vs single
+    """pf==1 mesh takes the score-fused distributed AGNN (one-call fused
+    backward) — fwd and grads exact vs single
     device."""
-    from tcgnn_tpu.data.synthetic import powerlaw_graph
-    from tcgnn_tpu.data.dataset import coo_to_csr
-    from tcgnn_tpu.models import layers as L
-    from tcgnn_tpu.parallel import make_mesh
+    from tcgnn.data.synthetic import powerlaw_graph
+    from tcgnn.data.dataset import coo_to_csr
+    from tcgnn.models import layers as L
+    from tcgnn.parallel import make_mesh
 
     mesh81 = make_mesh(n_graph=8, n_feature=1)
     n, d = 160, 16

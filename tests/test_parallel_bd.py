@@ -14,12 +14,12 @@ import numpy as np
 import optax
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import component_union_graph
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.models import nets
-from tcgnn_tpu.parallel import (
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import component_union_graph
+from tcgnn.graph import TiledGraph
+from tcgnn.models import nets
+from tcgnn.parallel import (
     DistributedTiledGraph,
     init_distributed_net,
     make_distributed_train_step,
@@ -133,7 +133,7 @@ def test_bd_dist_directed_banded_weighted_grads(mesh42):
     """DIRECTED fully-covered banded graph: the transpose machinery (own
     bdm_t extraction, bwd cov slots, edge_fwd_slot routing) must reproduce
     the single-device values and gradients."""
-    from tcgnn_tpu.data.dataset import coo_to_csr
+    from tcgnn.data.dataset import coo_to_csr
 
     n = 2048
     rng = np.random.default_rng(17)
@@ -197,11 +197,11 @@ def test_bd_dist_gate_misaligned_bins_falls_back(mesh42):
 
 def test_bd_dist_gate_powerlaw_falls_back(mesh42):
     """Power-law graphs stay on the condensed distributed design."""
-    from tcgnn_tpu.data.synthetic import powerlaw_graph
+    from tcgnn.data.synthetic import powerlaw_graph
 
     n = 1024
     src, dst = powerlaw_graph(n, 6000, seed=2)
-    from tcgnn_tpu.data.dataset import coo_to_csr
+    from tcgnn.data.dataset import coo_to_csr
 
     ptr, cols = coo_to_csr(src, dst, n)
     dg = DistributedTiledGraph(ptr, cols, n, mesh42, CFG)

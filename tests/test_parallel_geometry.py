@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.ops.reference import spmm_ref
-from tcgnn_tpu.parallel import DistributedTiledGraph, make_mesh
+from tcgnn.config import TileConfig
+from tcgnn.ops.reference import spmm_ref
+from tcgnn.parallel import DistributedTiledGraph, make_mesh
 
 
 def random_csr(n, avg_deg, seed=0):
@@ -120,7 +120,7 @@ def test_split_paths_default_geometry(mesh42):
     )
     np.testing.assert_allclose(np.asarray(out)[:n, :d], want, rtol=1e-3, atol=1e-3)
 
-    from tcgnn_tpu.graph import TiledGraph
+    from tcgnn.graph import TiledGraph
 
     sg = TiledGraph(ptr, cols, n, TileConfig())
     att = np.array([[0.5, 1.5]], np.float32)
@@ -133,7 +133,7 @@ def test_split_paths_default_geometry(mesh42):
 
 def test_mesh_cli_smoke(tmp_path, capsys):
     """--mesh trainer end to end, with the newly plumbed eval/checkpoint."""
-    from tcgnn_tpu import train as train_mod
+    from tcgnn import train as train_mod
 
     ckpt = tmp_path / "ck.npz"
     ms = train_mod.main([

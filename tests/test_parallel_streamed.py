@@ -14,13 +14,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.parallel import make_mesh
-from tcgnn_tpu.parallel.graph import DistributedTiledGraph
-from tcgnn_tpu.parallel.train import (
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph
+from tcgnn.graph import TiledGraph
+from tcgnn.parallel import make_mesh
+from tcgnn.parallel.graph import DistributedTiledGraph
+from tcgnn.parallel.train import (
     init_distributed_net,
     make_distributed_train_step,
 )

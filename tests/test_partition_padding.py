@@ -1,25 +1,24 @@
 """Regression tests for cross-shard padding in the distributed metadata.
 
-Mosaic only guarantees output-tile accumulation across *consecutive* grid
-steps: if the stacked per-shard block/chunk padding pointed the output index
-map back at window 0 (as it did pre-fix), real TPU hardware would copy out a
-stale VMEM buffer over window 0's result.  The legacy interpreter re-reads
-output blocks every step and hides this, so these tests (a) assert the
-monotone-output-map invariant directly on the host metadata and (b) run the
-distributed ops under JAX's TPU-faithful Pallas interpreter, which raises
-``Revisited block`` for non-consecutive revisits.
+The stacked per-shard block/chunk padding must keep every shard's output
+window map non-decreasing: the dense-tile Triton kernel locates a window's
+blocks as one contiguous range, so a padding block that pointed back at
+window 0 would be folded into the wrong window (or dropped).  These tests
+(a) assert the monotone-output-map invariant directly on the host metadata
+and (b) run each shard's local op — the dense-tile Triton kernel in
+interpret mode, the chunk form as plain XLA — padded metadata included, and
+assemble the results against ``spmm_ref``.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.ops.reference import spmm_ref
-from tcgnn_tpu.parallel import DistributedTiledGraph, make_mesh
-from tcgnn_tpu.parallel.partition import partition_graph
+from tcgnn.config import TileConfig
+from tcgnn.ops.reference import spmm_ref
+from tcgnn.parallel import DistributedTiledGraph, make_mesh
+from tcgnn.parallel.partition import partition_graph
 
 CFG = TileConfig(blk_h=16, blk_w=16, edge_chunk=16)
 
@@ -74,13 +73,17 @@ def test_stacked_padding_keeps_output_maps_monotone(group):
     _assert_monotone_output_maps(bwd)
 
 
-# The strict interpreter deadlocks when invoked concurrently from 8 CPU
-# devices under shard_map (its buffer allocator io_callbacks serialize on
-# global state), so instead of driving DistributedTiledGraph we run each
-# shard's *local* Pallas call — exactly the program a real TPU core would
-# execute, padded metadata included — one at a time under the strict
-# interpreter and assemble the results.
-STRICT = pltpu.InterpretParams(uninitialized_memory="nan")
+# Each shard's local op runs on its own — exactly the program one device
+# executes inside the shard map, padded metadata included — and the
+# results are assembled on the host.
+def _dense_spmm(x, tiles, col_ids, block_window, num_windows):
+    from tcgnn.ops.spmm import _spmm_dense_triton
+
+    return _spmm_dense_triton(
+        jnp.asarray(x), jnp.asarray(tiles), jnp.asarray(col_ids),
+        jnp.asarray(block_window), cfg=CFG, num_windows=num_windows,
+        interpret=True,
+    )
 
 
 @pytest.fixture(scope="module")
@@ -96,23 +99,15 @@ def strict_setup():
 
 
 def test_strict_interpret_dense_spmm_per_shard(strict_setup):
-    from tcgnn_tpu.ops.spmm import _spmm_dense_padded
-
     fwd, x, x_full, want, ptr, cols = strict_setup
     n, d = x.shape
     outs = []
     for s in range(fwd.num_shards):
         outs.append(
             np.asarray(
-                _spmm_dense_padded(
-                    jnp.asarray(x_full),
-                    jnp.asarray(fwd.a_tiles[s]),
-                    jnp.asarray(fwd.col_ids[s]),
-                    jnp.asarray(fwd.block_window[s]),
-                    jnp.asarray(fwd.block_first_in_window[s]),
-                    cfg=CFG,
-                    num_windows=fwd.windows_per_shard,
-                    interpret=STRICT,
+                _dense_spmm(
+                    x_full, fwd.a_tiles[s], fwd.col_ids[s],
+                    fwd.block_window[s], fwd.windows_per_shard,
                 )
             )
         )
@@ -121,7 +116,7 @@ def test_strict_interpret_dense_spmm_per_shard(strict_setup):
 
 
 def test_strict_interpret_chunk_spmm_per_shard(strict_setup):
-    from tcgnn_tpu.ops.spmm import _spmm_padded
+    from tcgnn.ops.spmm import _spmm_padded
 
     fwd, x, x_full, want, ptr, cols = strict_setup
     n, d = x.shape
@@ -138,12 +133,9 @@ def test_strict_interpret_chunk_spmm_per_shard(strict_setup):
                     chunk_w,
                     jnp.asarray(fwd.chunk_block[s]),
                     jnp.asarray(fwd.chunk_window[s]),
-                    jnp.asarray(fwd.chunk_first_in_window[s]),
                     cfg=CFG,
                     num_windows=fwd.windows_per_shard,
                     weighted=False,
-                    interpret=STRICT,
-                    d_tile=d,
                 )
             )
         )
@@ -152,8 +144,6 @@ def test_strict_interpret_chunk_spmm_per_shard(strict_setup):
 
 
 def test_strict_interpret_overlap_classes_per_shard(strict_setup):
-    from tcgnn_tpu.ops.spmm import _spmm_dense_padded
-
     fwd, x, x_full, want, ptr, cols = strict_setup
     n, d = x.shape
     ov = fwd.overlap
@@ -165,15 +155,9 @@ def test_strict_interpret_overlap_classes_per_shard(strict_setup):
         for cls, xin in (("local", x_loc), ("remote", x_full)):
             m = ov[cls]
             part += np.asarray(
-                _spmm_dense_padded(
-                    jnp.asarray(xin),
-                    jnp.asarray(m["a_tiles"][s]),
-                    jnp.asarray(m["col_ids"][s]),
-                    jnp.asarray(m["block_window"][s]),
-                    jnp.asarray(m["block_first_in_window"][s]),
-                    cfg=CFG,
-                    num_windows=fwd.windows_per_shard,
-                    interpret=STRICT,
+                _dense_spmm(
+                    xin, m["a_tiles"][s], m["col_ids"][s],
+                    m["block_window"][s], fwd.windows_per_shard,
                 )
             )[:, :d]
         outs.append(part)
@@ -205,7 +189,7 @@ def test_int8_overflow_falls_back_to_compute_dtype():
 def test_multigraph_distributed_spmm_exact(mesh42_cached={}):
     """End-to-end distributed SpMM on a >127-duplicate multigraph: the
     duplicate count must aggregate as 200, not wrap."""
-    from tcgnn_tpu.parallel import DistributedTiledGraph, make_mesh
+    from tcgnn.parallel import DistributedTiledGraph, make_mesh
 
     n, d = 64, 8
     cols = np.concatenate([np.zeros(200, np.int64), np.arange(1, n)])
@@ -225,10 +209,9 @@ def test_multigraph_distributed_spmm_exact(mesh42_cached={}):
 
 
 def test_strict_interpret_split_spmm_per_shard():
-    """Split streams (guest windows + pads) under the TPU-faithful
-    interpreter: output map must stay consecutive-revisit-only, and the
-    host-side replay of the partial-tile exchange must reproduce spmm_ref."""
-    from tcgnn_tpu.ops.spmm import _spmm_dense_padded
+    """Split streams (guest windows + pads) through the dense-tile kernel:
+    output maps must stay non-decreasing, and the host-side replay of the
+    partial-tile exchange must reproduce spmm_ref."""
 
     rng = np.random.default_rng(0)
     n, d = 400, 32
@@ -257,15 +240,9 @@ def test_strict_interpret_split_spmm_per_shard():
     guests = np.zeros((g, max(gcap, 1), blk_h, d), np.float32)
     for s in range(g):
         out = np.asarray(
-            _spmm_dense_padded(
-                jnp.asarray(x_full),
-                jnp.asarray(sp["a_tiles"][s]),
-                jnp.asarray(sp["col_ids_global"][s]),
-                jnp.asarray(sp["block_window"][s]),
-                jnp.asarray(sp["block_first"][s]),
-                cfg=CFG,
-                num_windows=wd + max(gcap, 1),
-                interpret=STRICT,
+            _dense_spmm(
+                x_full, sp["a_tiles"][s], sp["col_ids_global"][s],
+                sp["block_window"][s], wd + max(gcap, 1),
             )
         )[:, :d]
         own[s] = out[:rows]
@@ -287,9 +264,8 @@ def test_strict_interpret_split_spmm_per_shard():
 def test_strict_interpret_split_weighted_spmm_per_shard():
     """Weighted split stream: per-shard tiles rebuilt on host from the
     edge_pos/w_src maps (mirroring the device scatter against the
-    all-gathered edge vector), run under the strict interpreter, exchanged,
-    and checked against the weighted spmm_ref."""
-    from tcgnn_tpu.ops.spmm import _spmm_dense_padded
+    all-gathered edge vector), run through the dense-tile kernel,
+    exchanged, and checked against the weighted spmm_ref."""
 
     rng = np.random.default_rng(1)
     n, d = 400, 32
@@ -336,15 +312,9 @@ def test_strict_interpret_split_weighted_spmm_per_shard():
         # scatter-built tiles must structurally match the stacked int8 tiles
         assert ((tiles != 0) <= (np.asarray(sp["a_tiles"][s]) != 0)).all()
         out = np.asarray(
-            _spmm_dense_padded(
-                jnp.asarray(x_full),
-                jnp.asarray(tiles),
-                jnp.asarray(sp["col_ids_global"][s]),
-                jnp.asarray(sp["block_window"][s]),
-                jnp.asarray(sp["block_first"][s]),
-                cfg=CFG,
-                num_windows=wd + max(gcap, 1),
-                interpret=STRICT,
+            _dense_spmm(
+                x_full, tiles, sp["col_ids_global"][s],
+                sp["block_window"][s], wd + max(gcap, 1),
             )
         )[:, :d]
         own[s] = out[:rows]

@@ -12,8 +12,8 @@ produces the parity numbers.
 import numpy as np
 import pytest
 
-from tcgnn_tpu.data import dataset as data_lib
-from tcgnn_tpu.data import synthetic
+from tcgnn.data import dataset as data_lib
+from tcgnn.data import synthetic
 
 
 def _planted(n=300, e=2400, dim=16, classes=4, seed=7):
@@ -57,7 +57,7 @@ def test_npz_extension_keys_carry_real_labels(tmp_path):
 def test_train_cli_end_to_end_on_npz(tmp_path, capsys):
     """Loader -> SGT -> trainer -> eval on a real-contract labeled .npz:
     must print the reference output contract and beat chance accuracy."""
-    from tcgnn_tpu import train as train_mod
+    from tcgnn import train as train_mod
 
     ds = _planted()
     deg = np.diff(ds.row_pointers)
@@ -93,7 +93,7 @@ def test_train_cli_end_to_end_on_npz(tmp_path, capsys):
 def test_accuracy_parity_harness_on_golden_fixture():
     """The checked-in golden .npz + parity script: tiled kernels match the
     dense oracle on forward logits and trained accuracy (VERDICT r2 #7)."""
-    from tcgnn_tpu.bench import accuracy_parity
+    from tcgnn.bench import accuracy_parity
 
     failures = accuracy_parity.main(["--epochs", "60", "--models", "gcn"])
     assert failures == 0
@@ -106,7 +106,7 @@ def test_ae_driver_prefers_real_npz(tmp_path, monkeypatch, capsys):
     turnkey and self-verifying)."""
     import numpy as np
 
-    from tcgnn_tpu.bench import sweep
+    from tcgnn.bench import sweep
 
     rng = np.random.default_rng(0)
     n, e = 300, 1500
@@ -136,7 +136,7 @@ def test_loader_validation_rejects_malformed(tmp_path):
     import numpy as np
     import pytest as _pytest
 
-    from tcgnn_tpu.data import dataset as data_lib
+    from tcgnn.data import dataset as data_lib
 
     np.savez(
         tmp_path / "bad.npz",

@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph, synthesize
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.ops.reference import spmm_ref
-from tcgnn_tpu.sgt.reorder import (
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph, synthesize
+from tcgnn.graph import TiledGraph
+from tcgnn.ops.reference import spmm_ref
+from tcgnn.sgt.reorder import (
     community_permutation,
     permute_csr,
     rcm_permutation,
@@ -62,7 +62,7 @@ def test_spmm_invariant_under_reorder():
 
 def test_reorder_dataset_reduces_or_keeps_blocks():
     ds = synthesize("rand_5000_40000", dim=8, num_classes=3, seed=1)
-    from tcgnn_tpu.sgt.translate import count_blocks
+    from tcgnn.sgt.translate import count_blocks
 
     b0 = count_blocks(ds.row_pointers, ds.column_index, ds.num_nodes, CFG)
     reorder_dataset(ds, "rcm")
@@ -112,7 +112,7 @@ def test_community_recovers_scrambled_clusters():
     ptr0, cols0 = coo_to_csr(src, dst, n)                    # ideal ids
     ptr1, cols1 = coo_to_csr(scramble[src], scramble[dst], n)  # scrambled
 
-    from tcgnn_tpu.sgt.translate import count_blocks
+    from tcgnn.sgt.translate import count_blocks
 
     cfg = TileConfig(blk_h=64, blk_w=16, edge_chunk=16)
     ideal = count_blocks(ptr0, cols0, n, cfg)

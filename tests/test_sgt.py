@@ -10,10 +10,10 @@ uniform chunk layout.
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import GPU_REFERENCE_CONFIG, TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph
-from tcgnn_tpu.sgt.translate import sparse_graph_translate, transpose_csr
+from tcgnn.config import GPU_REFERENCE_CONFIG, TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph
+from tcgnn.sgt.translate import sparse_graph_translate, transpose_csr
 
 
 def random_csr(num_nodes, num_edges, seed=0):

@@ -16,10 +16,10 @@ import numpy as np
 import optax
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.ops.reference import spmm_ref
-from tcgnn_tpu.parallel import (
+from tcgnn.config import TileConfig
+from tcgnn.graph import TiledGraph
+from tcgnn.ops.reference import spmm_ref
+from tcgnn.parallel import (
     DistributedTiledGraph,
     init_distributed_net,
     make_distributed_train_step,
@@ -255,9 +255,9 @@ def test_split_weighted_spmm_directed(mesh42):
 
 
 def test_split_sfused_agnn_pf1_exact():
-    """pf==1 split stream rides the score-fused AGNN (in-VMEM score tiles);
+    """pf==1 split stream rides the score-fused AGNN (score-fused ops);
     fwd and grads match the single-device fused op exactly."""
-    from tcgnn_tpu.parallel import make_mesh
+    from tcgnn.parallel import make_mesh
 
     mesh81 = make_mesh(n_graph=8, n_feature=1)
     n, d = 400, 16

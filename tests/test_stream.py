@@ -10,15 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.ops.reference import sddmm_ref, spmm_ref
-from tcgnn_tpu.ops.sddmm import sddmm_tc_streamed
-from tcgnn_tpu.ops.spmm import spmm_tc_streamed
-from tcgnn_tpu.sgt.stream import needs_streaming, segment_chunks
-from tcgnn_tpu.sgt.translate import sparse_graph_translate
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph
+from tcgnn.graph import TiledGraph
+from tcgnn.ops.reference import sddmm_ref, spmm_ref
+from tcgnn.ops.sddmm import sddmm_tc_streamed
+from tcgnn.ops.spmm import spmm_tc_streamed
+from tcgnn.sgt.stream import needs_streaming, segment_chunks
+from tcgnn.sgt.translate import sparse_graph_translate
 
 CFG = TileConfig(blk_h=32, blk_w=32, edge_chunk=32)
 
@@ -83,7 +83,7 @@ def test_streamed_sddmm_two_matrix():
     xa = jax.random.normal(jax.random.PRNGKey(5), (n, d), jnp.float32)
     xb = jax.random.normal(jax.random.PRNGKey(6), (n, d), jnp.float32)
     got = sddmm_tc_streamed(xa, smeta, xb)
-    from tcgnn_tpu.ops.reference import edge_rows_from_csr
+    from tcgnn.ops.reference import edge_rows_from_csr
 
     rows = edge_rows_from_csr(jnp.asarray(indptr), len(indices))
     want = jnp.sum(xa[rows] * xb[jnp.asarray(indices)], axis=1)

@@ -6,12 +6,12 @@ import numpy as np
 import optax
 import pytest
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph, synthesize
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.models import nets
-from tcgnn_tpu.train import make_train_step
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph, synthesize
+from tcgnn.graph import TiledGraph
+from tcgnn.models import nets
+from tcgnn.train import make_train_step
 
 CFG = TileConfig(blk_h=16, blk_w=16, edge_chunk=16)
 
@@ -82,7 +82,7 @@ def test_synthetic_edge_counts():
     # Within 25% of the target edge count after dedup/top-up.
     assert abs(ds.num_edges - e) / e < 0.25
     # Symmetric by construction.
-    from tcgnn_tpu.sgt.translate import transpose_csr
+    from tcgnn.sgt.translate import transpose_csr
 
     t_ptr, t_idx, _ = transpose_csr(ds.row_pointers, ds.column_index, ds.num_nodes)
     np.testing.assert_array_equal(t_ptr, ds.row_pointers)
@@ -91,7 +91,7 @@ def test_synthetic_edge_counts():
 
 def test_trainer_cli_smoke(capsys):
     """The CLI runs end-to-end and prints the reference's output contract."""
-    from tcgnn_tpu import train as train_mod
+    from tcgnn import train as train_mod
 
     train_mod.main(
         [
@@ -113,10 +113,10 @@ def test_step_many_matches_step_chain():
     params, same loss."""
     import optax
 
-    from tcgnn_tpu.config import TileConfig
-    from tcgnn_tpu.data.synthetic import synthesize
-    from tcgnn_tpu.graph import TiledGraph
-    from tcgnn_tpu.models import nets
+    from tcgnn.config import TileConfig
+    from tcgnn.data.synthetic import synthesize
+    from tcgnn.graph import TiledGraph
+    from tcgnn.models import nets
 
     ds = synthesize("rand_500_2500", dim=12, num_classes=3, seed=0)
     cfg = TileConfig(blk_h=32, blk_w=32, edge_chunk=32)
@@ -144,9 +144,9 @@ def test_step_many_matches_step_chain():
 def test_auto_block_group_resolution():
     """block_group=0 resolves per graph: dense windows -> 2, sparse -> 1;
     explicit values pass through untouched."""
-    from tcgnn_tpu.config import TileConfig
-    from tcgnn_tpu.data.synthetic import synthesize
-    from tcgnn_tpu.graph import TiledGraph
+    from tcgnn.config import TileConfig
+    from tcgnn.data.synthetic import synthesize
+    from tcgnn.graph import TiledGraph
 
     # dense windows: a small dense-ish random graph has many blocks/window
     ds = synthesize("rand_2000_80000", dim=8, num_classes=2, seed=1)

@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.synthetic import synthesize
-from tcgnn_tpu.graph import tiled_graph_from_dataset
-from tcgnn_tpu.models import nets
-from tcgnn_tpu.train import make_train_step
-from tcgnn_tpu.utils import checkpoint as ckpt
+from tcgnn.config import TileConfig
+from tcgnn.data.synthetic import synthesize
+from tcgnn.graph import tiled_graph_from_dataset
+from tcgnn.models import nets
+from tcgnn.train import make_train_step
+from tcgnn.utils import checkpoint as ckpt
 
 CFG = TileConfig(blk_h=16, blk_w=16, edge_chunk=16)
 
@@ -127,7 +127,7 @@ def test_trainer_resume_continues_from_checkpoint(tmp_path, capsys):
     'crash' (a second invocation) and --resume — the run picks up at the
     saved epoch, runs only the remaining epochs, and ends with a loss in
     the same regime."""
-    from tcgnn_tpu import train as train_mod
+    from tcgnn import train as train_mod
 
     d = str(tmp_path / "ck")
     args = [

@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tcgnn_tpu.config import TileConfig
-from tcgnn_tpu.data.dataset import coo_to_csr
-from tcgnn_tpu.data.synthetic import powerlaw_graph
-from tcgnn_tpu.graph import TiledGraph
-from tcgnn_tpu.models import layers as L
-from tcgnn_tpu.utils.profiling import op_stats
+from tcgnn.config import TileConfig
+from tcgnn.data.dataset import coo_to_csr
+from tcgnn.data.synthetic import powerlaw_graph
+from tcgnn.graph import TiledGraph
+from tcgnn.models import layers as L
+from tcgnn.utils.profiling import op_stats
 
 CFG = TileConfig(blk_h=16, blk_w=16, edge_chunk=16)
 
@@ -52,12 +52,12 @@ def test_op_stats():
 
 
 def test_public_exports():
-    import tcgnn_tpu
-    import tcgnn_tpu.ops as ops
-    import tcgnn_tpu.models as models
-    import tcgnn_tpu.parallel as par
+    import tcgnn
+    import tcgnn.ops as ops
+    import tcgnn.models as models
+    import tcgnn.parallel as par
 
-    assert callable(tcgnn_tpu.tiled_graph_from_dataset)
+    assert callable(tcgnn.tiled_graph_from_dataset)
     assert callable(ops.spmm_tc_dense) and callable(ops.sddmm_ref)
     assert "gcn" in models.MODEL_KINDS
     assert callable(par.make_mesh)
@@ -95,7 +95,7 @@ def test_agnn_multihead_dense_oracle():
 
 def test_train_cli_multihead():
     """--n_heads 4 trains end to end and the loss decreases."""
-    from tcgnn_tpu import train as T
+    from tcgnn import train as T
 
     loss = T.main([
         "--dataset", "rand_400_2000", "--dim", "12", "--hidden", "8",
